@@ -1,5 +1,5 @@
 # (C) 2026. Licensed under the Apache License, Version 2.0.
-"""Scale SQD batches over a TPU mesh (the reference's Dice-solver scenario).
+"""Scale SQD batches over a device mesh (the reference's Dice-solver scenario).
 
 Mirrors docs/guides/integrate_dice_solver.ipynb: the reference swaps in an
 MPI-based C++ solver through the ``sci_solver`` seam to parallelize the

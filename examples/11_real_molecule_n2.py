@@ -1,7 +1,7 @@
 # (C) 2026. Licensed under the Apache License, Version 2.0.
 """Quickstart on a real molecule: N2/STO-3G from raw geometry to the FCI energy.
 
-TPU-native port of the reference quickstart
+Port of the reference quickstart
 (``/root/reference/docs/guides/quickstart.ipynb``) with one upgrade: the
 molecular integrals come from the built-in Gaussian-integral engine
 (:mod:`sqd_tpu.chem`) instead of PySCF, so the whole pipeline — geometry ->
@@ -11,9 +11,6 @@ RHF -> CASCI active space -> uniform samples -> SQD loop -> exact FCI energy
 
 import numpy as np
 
-import jax
-
-jax.config.update("jax_platforms", "cpu")
 
 def main():
     from sqd_tpu.chem import Molecule, active_space_integrals, rhf

@@ -13,10 +13,6 @@ stacks have them natively on device:
 
 import numpy as np
 
-import jax
-
-jax.config.update("jax_platforms", "cpu")
-
 
 def main():
     from sqd_tpu import qubit

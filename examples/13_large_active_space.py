@@ -14,21 +14,17 @@ workflows of the other examples:
 3. **The cross-spin FLOP wall** — the (norb^2, norb^2) pair contraction is
    2*norb^4*dim FLOPs per matvec.  Physical ERIs factor as V = L^T L with
    rank X ~ 6-10x norb (``eri_factor="auto"``), and the factored operator
-   can be densified to pure batched-MXU matmuls with zero gathers
+   can be densified to pure batched matmuls with zero gathers
    (``matvec_strategy="dense_df"``).
 
 This example runs the full pattern at a CPU-friendly size: a synthetic PSD
 ERI over 36 orbitals (the image ships no Fe basis data — the *shape* is the
 point), a few-hundred-determinant subspace, and cross-validation of every
-strategy against the same exact solve.  ``probes/fe4s4_class.py`` runs the
-same machinery at 1e7 determinants on a real TPU.
+strategy against the same exact solve.  The ``dense_df_1e7`` phase of
+``chip_smoke.py`` runs the same machinery at 1e7 determinants on a GPU.
 """
 
 import numpy as np
-
-import jax
-
-jax.config.update("jax_platforms", "cpu")
 
 
 def main():

@@ -17,10 +17,6 @@ truncated window against the independent dense-FCI oracle
 
 import numpy as np
 
-import jax
-
-jax.config.update("jax_platforms", "cpu")
-
 
 def main(n_shots: int = 3_000, samples_per_batch: int = 50, max_iterations: int = 3):
     from sqd_tpu.chem import Molecule, active_space_integrals, rhf

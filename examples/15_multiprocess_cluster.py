@@ -4,15 +4,15 @@
 The reference's cluster scale-out story is swapping its eigensolver for an
 MPI-launched external C++ program
 (``/root/reference/docs/guides/integrate_dice_solver.ipynb``).  The
-TPU-native story is SPMD: every host runs THIS SAME script, joins the
+JAX story is SPMD: every host runs THIS SAME script, joins the
 runtime with :func:`sqd_tpu.parallel.init_distributed`, and the sharded
 solvers run unchanged over a mesh spanning every host's devices — the
-Davidson reductions, panel all-gathers and factor-axis psums ride ICI/DCN
-(Gloo on CPU).
+Davidson reductions, panel all-gathers and factor-axis psums ride NCCL
+on GPUs (Gloo on CPU).
 
-On a real pod slice each host launches ``python 15_multiprocess_cluster.py``
+On a real cluster each host launches ``python 15_multiprocess_cluster.py``
 with the coordinator env set (``SQD_TPU_COORDINATOR``/``NUM_PROCESSES``/
-``PROCESS_ID`` — on Cloud TPU, nothing at all).  For a self-contained demo,
+``PROCESS_ID``).  For a self-contained demo,
 ``main()`` plays the launcher itself: it spawns TWO worker processes with 4
 virtual CPU devices each and checks both ranks return the identical,
 oracle-exact energy through a determinant-row-sharded solve.
@@ -35,7 +35,7 @@ import numpy as np
 import sqd_tpu.parallel as par
 
 rank, port = int(sys.argv[1]), int(sys.argv[2])
-# join the multi-process runtime: Gloo collectives on CPU, ICI/DCN on TPU
+# join the multi-process runtime: Gloo collectives on CPU, NCCL on GPUs
 par.init_distributed(
     "127.0.0.1:%d" % port, num_processes=2, process_id=rank, platform="cpu"
 )

@@ -17,9 +17,6 @@ its <S^2> measures spin contamination the restricted solution avoids.
 
 import numpy as np
 
-import jax
-
-jax.config.update("jax_platforms", "cpu")
 
 # triplet CH2: r(CH) = 1.0775 A, HCH angle 134 deg
 _R, _HALF = 1.0775, np.deg2rad(134.0 / 2)

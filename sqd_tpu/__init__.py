@@ -1,14 +1,14 @@
 # (C) 2026. Licensed under the Apache License, Version 2.0.
-"""sqd_tpu — a TPU-native framework for sample-based quantum diagonalization.
+"""sqd_tpu — an accelerator-native framework for sample-based quantum diagonalization.
 
-A from-scratch JAX/XLA/Pallas re-design of the capabilities of
+A from-scratch JAX/XLA re-design of the capabilities of
 ``qiskit-addon-sqd`` (reference v0.12.1): noisy quantum-computer samples are
 repaired by statistical configuration recovery, subsampled into batches, and
 the molecular Hamiltonian is projected into the sampled determinant subspace
 and diagonalized — with every hot path (bitstring kernels, selected-CI
 Hamiltonian application, Davidson/Lanczos eigensolvers, RDM contraction)
 running on device, and independent batch diagonalizations sharded across a
-TPU mesh.
+device mesh.
 
 Public modules (mirroring the reference's five-module surface):
 
@@ -18,7 +18,7 @@ Public modules (mirroring the reference's five-module surface):
 * :mod:`sqd_tpu.fermion` — SCI solver stack and the SQD orchestrator.
 * :mod:`sqd_tpu.qubit` — Pauli-operator projection and subspace eigensolve.
 
-Plus TPU-native layers with no reference counterpart:
+Plus device-side layers with no reference counterpart:
 
 * :mod:`sqd_tpu.ops` — packed-bitstring, link-table, matvec, Davidson kernels.
 * :mod:`sqd_tpu.parallel` — device-mesh sharding of batch diagonalizations.

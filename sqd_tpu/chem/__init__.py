@@ -2,7 +2,7 @@
 """Real-molecule input layer: Gaussian integrals, RHF, CASCI active spaces.
 
 The PySCF stand-in for this framework — enough quantum chemistry to validate
-the TPU solvers on the reference's actual molecular benchmarks (N2 at
+the device solvers on the reference's actual molecular benchmarks (N2 at
 STO-3G/6-31G) without any external chemistry package in the image.
 """
 

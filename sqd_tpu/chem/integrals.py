@@ -12,7 +12,7 @@ guides all start from ``pyscf.gto.M(...)`` (e.g.
 
 Correctness is pinned by reproducing the reference's published energies
 (see :mod:`sqd_tpu.chem.basis_data`); everything here is plain f64 NumPy —
-these matrices are tiny (``nao <= O(100)``), the TPU does the CI work.
+these matrices are tiny (``nao <= O(100)``), the device does the CI work.
 
 Conventions: Cartesian p components ordered (x, y, z); ERI returned in
 chemist notation ``(pq|rs)`` as a full 4-index tensor.

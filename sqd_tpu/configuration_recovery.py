@@ -1,7 +1,7 @@
 # (C) 2026. Licensed under the Apache License, Version 2.0.
 """Self-consistent configuration recovery, vectorized across all samples.
 
-TPU-native re-implementation of reference
+Device re-implementation of reference
 ``qiskit_addon_sqd/configuration_recovery.py``.  The reference repairs each
 bitstring in a per-sample Python loop (``configuration_recovery.py:114-123``,
 its hot loop #2); here the whole batch is repaired by one jitted kernel:

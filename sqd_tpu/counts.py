@@ -1,7 +1,7 @@
 # (C) 2026. Licensed under the Apache License, Version 2.0.
 """Sample ingestion: counts dictionaries / bit arrays -> bitstring matrices.
 
-TPU-native re-implementation of the reference layer L0
+Device re-implementation of the reference layer L0
 (``qiskit_addon_sqd/counts.py``).  The public surface is identical; the
 implementation avoids per-sample Python loops by going through the packed
 uint32 word representation (:mod:`sqd_tpu.ops.bitpack`) for dedup and integer

@@ -2,7 +2,7 @@
 //
 // Native host kernels for sqd_tpu.
 //
-// The TPU owns the compute path (JAX/XLA/Pallas); these C++ routines own the
+// The accelerator owns the compute path (JAX/XLA); these C++ routines own the
 // host-side bookkeeping that feeds it — the role PySCF's C extensions play
 // for the reference (SURVEY.md N1/N8).  Bitstrings are packed little-endian
 // uint32 words (word 0 = orbitals 0..31), matching sqd_tpu.ops.bitpack.
@@ -96,7 +96,7 @@ int64_t desdes_unique(const uint32_t* strs, int64_t n, int w, int nelec,
 
 // Membership of (strs[i] XOR xmask) in the sorted set, for packed widths
 // w <= 2 via radix sort + linear merge (cache-friendly; random-access binary
-// search is latency-bound both here and on TPU HBM).  out[i] = index of the
+// search is latency-bound both here and in device memory).  out[i] = index of the
 // connected string, or -1.
 void connected_membership64(const uint32_t* strs, int64_t n, const uint32_t* xmask,
                             int64_t* out) {

@@ -1,11 +1,11 @@
 # (C) 2026. Licensed under the Apache License, Version 2.0.
-"""Packed-word bitstring arrays — the TPU-native determinant representation.
+"""Packed-word bitstring arrays — the device-side determinant representation.
 
 The reference implementation (``qiskit_addon_sqd/counts.py:186-201``) represents
 CI strings as ``int64`` scalars and silently switches to Python unbounded
 integers (``object`` dtype) at >= 64 bits, and its JAX kernels are capped at 63
-qubits (``qubit.py:62``).  TPUs have no fast 64-bit integer path, so this module
-instead packs every bitstring into ``ceil(nbits / 32)`` little-endian ``uint32``
+qubits (``qubit.py:62``).  Accelerators have no fast 64-bit integer path, so this
+module instead packs every bitstring into ``ceil(nbits / 32)`` little-endian ``uint32``
 words.  All device kernels (popcount, Hamming postselection, lexicographic
 sort/unique, binary search) operate on the packed representation, which removes
 the 63-bit cliff entirely.
@@ -209,7 +209,7 @@ def _void_view(arr: np.ndarray) -> np.ndarray:
 
 
 def jnp_popcount(words):
-    """Population count of a uint32 array (SWAR, VPU-friendly)."""
+    """Population count of a uint32 array (SWAR, elementwise only)."""
     import jax.numpy as jnp
 
     x = words.astype(jnp.uint32)
@@ -247,7 +247,7 @@ def jnp_sort_packed(packed, *payloads):
     """Sort rows of a packed matrix ascending; reorder payloads identically.
 
     Uses ``lax.sort`` with the words as multiple keys (most significant first),
-    which maps onto the TPU's native sort.
+    which maps onto the device's native multi-key sort.
     """
     import jax
     import jax.numpy as jnp

@@ -15,14 +15,13 @@ decomposition the gather matvec uses, re-associated).  The same-spin
 channels densify to single matrices ``H_aa (M, M)`` / ``H_bb (N, N)`` built
 from the Slater-Condon neighbor lists.
 
-The matvec is then pure batched MXU matmul — no gathers at all:
+The matvec is then pure batched matmul — no gathers at all:
 ``4 * X * M^2 * N`` FLOPs (M = N), vs the factored gather path's
 ``4 * X * npair * M * N`` plus its slice-count-bound alpha pick.  The dense
-form does ``M / npair`` times MORE FLOPs but runs at matmul speed-of-light
-instead of gather speed: at the [4Fe-4S]-class shape (M = N = 3168,
-npair = 1296, X = 123) the gather path measures ~10 s/matvec on a v5e while
-the dense form's 15.6 TFLOP of batched matmul lands in the sub-second MFU
-regime.  It LOSES below the crossover (production norb = 16 CASCI at 1.9e7
+form does ``M / npair`` times MORE FLOPs but runs at matmul speed instead of
+gather speed: at the [4Fe-4S]-class shape (M = N = 3168, npair = 1296,
+X = 123) it is 15.6 TFLOP of batched matmul per matvec and no gathers.  It
+LOSES below the crossover (production norb = 16 CASCI at 1.9e7
 determinants: 44 TFLOP dense vs 5 TFLOP gathered), so it is strictly
 opt-in via :func:`densify`.
 
@@ -30,8 +29,8 @@ Memory: ``wa``/``wb`` hold ``2 * X * M^2`` floats — the price of zero
 gathers — EXCEPT in the identical-set (S_z = 0) case, where :func:`densify`
 detects set equality modulo padding, builds ONE stack at the common padded
 width and aliases ``wb``/``hbb`` (4.4 GB instead of 8.8 GB f32 at the
-[4Fe-4S]-class shape, the difference between fitting and crashing a 16 GB
-v5e).  Callers at larger M should stay on the gather path or shard.
+[4Fe-4S]-class shape).  Callers at larger M should stay on the gather path
+or shard.
 
 Spin-penalty operators (``spin_shift != 0``) are not supported here: the
 mixed S^2 term's pair matrix is an involution (eigenvalues +-1, not PSD),
@@ -157,15 +156,14 @@ def _w_stack(src, sign, ell, dtype) -> jax.Array:
     ``A_pq[j, :] = sign[pq, j] * e_{src[pq, j]}`` (clamped tables: invalid
     entries carry sign 0, so padded/absent excitations contribute nothing).
     Built on device: the inputs are the already-resident gather tables, and
-    the one-hot einsum is ``2 * X * npair * M^2`` FLOPs of MXU work — far
+    the one-hot einsum is ``2 * X * npair * M^2`` FLOPs of matmul — far
     cheaper than shipping the (X, M, M) result over a host link.
 
     The accumulation is tiled over BOTH the pair axis and the output string
     (j) axis, each tile written into ``W`` in place via dynamic_update_slice:
     the earlier pairs-only formulation materialized a full (X, M^2) addend
     plus the carried W per iteration — ~15 GB peak at the [4Fe-4S]-class
-    shape (X=108, M=3163), observed RESOURCE_EXHAUSTED on a 16 GB v5e.
-    This form peaks at W + one (X, M, jb) block + (cp, M, jb) one-hots
+    shape (X=108, M=3163).  This form peaks at W + one (X, M, jb) block + (cp, M, jb) one-hots
     (~5.8 GB at the same shape).
     """
     npair, m = src.shape
@@ -239,7 +237,7 @@ def densify(
     """Build the dense density-fitted operator from a factored Hamiltonian.
 
     Requires ``ham.eri_chol`` (see ``build_sci_hamiltonian(eri_factor=...)``)
-    and no fused spin penalty.  The build itself is device-side MXU work
+    and no fused spin penalty.  The build itself is device-side matmul work
     (~``2 * X * npair * (M^2 + N^2)`` FLOPs, one-time per subspace).
     """
     if ham.eri_chol is None:
@@ -262,13 +260,13 @@ def densify(
 
     # Identical alpha/beta string sets (every S_z = 0 workflow, incl. the
     # [4Fe-4S] (27, 27) sector) make Wb == Wa and H_bb == H_aa: alias the
-    # buffers and halve the dominant HBM cost.  The builder pads the row
+    # buffers and halve the dominant memory cost.  ``build_sci_hamiltonian`` pads the row
     # axis to x8 but the column axis to x128, so identical sets routinely
     # arrive with DIFFERENT padded widths — compare modulo the zero padding
     # and build once at the common width; the matvec pads/slices c around
     # the square factors (exact: padded factor rows/columns are all zero).
-    # Without this, a (54e, 36o) 1e7-determinant build held TWO ~4.4 GB
-    # stacks plus the build transient and crashed a 16 GB v5e.
+    # Without this, a (54e, 36o) 1e7-determinant build holds TWO ~4.4 GB
+    # stacks plus the build transient.
     src_a, sign_a = _pad_cols(ham.src_a), _pad_cols(ham.sign_a)
     same_sets = ham.src_a.shape[0] == ham.src_b.shape[0] and bool(
         jnp.all(src_a == _pad_cols(ham.src_b))
@@ -279,7 +277,7 @@ def densify(
         haa = hbb = _dense_samespin(
             jnp.pad(ham.nbr_idx_a, pad_r), jnp.pad(ham.nbr_val_a, pad_r), dtype
         )
-        # the W stack dominates HBM: allocate it last
+        # the W stack dominates device memory: allocate it last
         wa = wb = _w_stack(src_a, sign_a, ell, dtype)
     else:
         haa = _dense_samespin(ham.nbr_idx_a, ham.nbr_val_a, dtype)

@@ -5,7 +5,7 @@ An *independent* implementation of the projected Hamiltonian over a fixed
 (strs_a x strs_b) determinant basis, built by explicit second-quantized
 operator application on Python integers.  It deliberately shares no code with
 the device kernels in :mod:`sqd_tpu.ops.hamiltonian` — it is the oracle the
-TPU path is validated against (the role PySCF's ``selected_ci`` plays for the
+device path is validated against (the role PySCF's ``selected_ci`` plays for the
 reference, cf. ``fermion.py:513-515``), exact to f64.
 
 Scaling is O(dim^2 * norb^2); use only for small subspaces in tests.

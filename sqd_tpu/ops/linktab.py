@@ -1,7 +1,7 @@
 # (C) 2026. Licensed under the Apache License, Version 2.0.
 """Excitation gather tables for selected-CI Hamiltonian application.
 
-TPU-native replacement for PySCF's C link tables (reference delegates to
+Device replacement for PySCF's C link tables (reference delegates to
 ``pyscf.fci.selected_ci.kernel_fixed_space`` / ``contract_2e`` at
 ``fermion.py:513-515``; SURVEY.md N1).  Key observation: for a *fixed* orbital
 pair ``(p, q)`` the single-excitation map ``|I> -> a+_p a_q |I>`` is injective
@@ -18,7 +18,7 @@ so that the action of the spin-resolved excitation operator is a pure gather:
 with a zero sentinel row at index ``n``.  No scatters anywhere — both the
 ``D[rs] = E_rs v`` build and the final ``sigma = sum_pq E_pq G[pq]`` reduce to
 gathers + elementwise multiplies, and the two-electron contraction between
-them is one big MXU matmul (see :mod:`sqd_tpu.ops.hamiltonian`).
+them is one big matmul (see :mod:`sqd_tpu.ops.hamiltonian`).
 
 Everything here is jittable with static shapes: ``(norb^2, n)`` int32/int8
 tables built by a vmapped branchless binary search over the packed string set.

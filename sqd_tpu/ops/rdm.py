@@ -1,14 +1,14 @@
 # (C) 2026. Licensed under the Apache License, Version 2.0.
 """Reduced density matrices and energies from SCI wavefunctions.
 
-TPU-native replacement for PySCF's C-backed ``make_rdm1/1s/2/2s`` and
+Device replacement for PySCF's C-backed ``make_rdm1/1s/2/2s`` and
 ``spin_square`` (reference call sites ``fermion.py:517-524, 613-622``;
 SURVEY.md N3).  Construction per channel:
 
 * 1-RDMs: both endpoints live in the subspace, so the per-pair single
   excitation gathers are exact: ``dm1[p,q] = (E_pq c) . c``.
 * opposite-spin 2-RDM block ``<E^a_pq E^b_rs>``: mixed intermediates stay in
-  the product basis -> exact Gram of alpha/beta gathers (one MXU matmul).
+  the product basis -> exact Gram of alpha/beta gathers (one matmul).
 * same-spin blocks ``<a+_p a+_r a_s a_q>``: single-excitation intermediates
   can leave a *selected* string set, so these go through the two-hole
   (des-des) gather tables, whose intermediate set is closed by construction:
@@ -161,10 +161,10 @@ def make_rdms(
     (npair, K, N) for the same-spin two-hole Grams) would exceed
     ``block_bytes``, its Gram accumulates over row/column blocks of at most
     ``block_bytes`` each — this is what carries ``solve_sci``'s
-    energy-from-RDMs step to 10^7 determinants on a single chip.  The tile
-    must stay SMALL (default 128 MB): XLA multi-buffers the loop-carried
-    gather operands ~8-12x for pipelining, so a 1 GB tile transiently costs
-    >10 GB of HBM (observed OOM at 10^7 dets with 2 GB tiles).
+    energy-from-RDMs step to 10^7 determinants on a single device.  The tile
+    must stay SMALL (default 128 MB): XLA may multi-buffer the loop-carried
+    gather operands several times over, so a GB-scale tile transiently
+    costs many GB of device memory.
     ``block_bytes=0`` forces blocking with the smallest tile (used by tests).
 
     Returns a dict with keys ``dm1a``, ``dm1b`` and, if ``with_dm2``:

@@ -2,7 +2,7 @@
 """Incremental gather/neighbor table builds across SQD iterations.
 
 The orchestrator rebuilds the projected Hamiltonian every iteration, but its
-string sets overlap heavily (carryover + resampled strings).  At TPU solve
+string sets overlap heavily (carryover + resampled strings).  At device solve
 speeds the host-side table build is the serial fraction, so the build is
 split into its two halves:
 
@@ -19,7 +19,7 @@ split into its two halves:
 Reference cost being addressed: PySCF rebuilds its link tables in C on every
 ``kernel_fixed_space`` call too (``/root/reference/qiskit_addon_sqd/
 fermion.py:602-610``) — cheap next to its CPU Davidson, dominant next to a
-TPU one.
+device one.
 
 Scope: packed width W <= 2 (<= 64 orbitals) and a loadable native library;
 otherwise callers fall back to the direct build.

@@ -1,5 +1,5 @@
 # (C) 2026. Licensed under the Apache License, Version 2.0.
-"""Mesh-sharded batch diagonalization — the TPU answer to the ``sci_solver`` seam.
+"""Mesh-sharded batch diagonalization — the device answer to the ``sci_solver`` seam.
 
 The reference documents that the per-iteration batch diagonalizations are
 embarrassingly parallel and leaves scaling to a swap-in MPI program
@@ -57,9 +57,8 @@ def _solve_one(ham32, ham64, tol: float, max_subspace: int, max_cycle: int):
     vec = vec / jnp.linalg.norm(vec)
     # Final energy policy (mirrors solve_sci / the reference's
     # energy-from-RDMs, fermion.py:509-524): the BARE Hamiltonian expectation
-    # — the spin penalty only steers the iteration — evaluated through the
-    # chunk-accumulated estimator, which is host-f64-exact on CPU and ~1e-8
-    # accurate on TPU where f64 dot_generals accumulate at f32 grade.
+    # — the spin penalty only steers the iteration — as the f64 Rayleigh
+    # quotient of the exact operator.
     energy = expectation_value(ham64, vec, spin_penalty=False)
     # spin-resolved occupancies from the exact single-excitation gathers
     rdms = rdm_ops.make_rdms(ham64, vec.reshape(m, n), with_dm2=False)

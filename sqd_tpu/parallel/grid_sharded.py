@@ -98,9 +98,9 @@ def _gridsharded_matvec(op, x):
 
         # stream the (Mr, N) partials over pair blocks so the transient stays
         # (npb, Mr, N) instead of (npair, Mr, N).  Picks run against the
-        # TRANSPOSED intermediates: XLA gathers are slice-count-bound (~17 ns
-        # per slice measured on a v5e, see ops.hamiltonian), so the slices
-        # must be (Mr * 4)-byte rows, never 4-byte lane elements.
+        # TRANSPOSED intermediates: XLA gathers pay per slice (see
+        # ops.hamiltonian), so the slices must be (Mr * 4)-byte rows, never
+        # 4-byte elements.
         nblk = max(1, int(round(math.sqrt(npair))))
         while npair % nblk:
             nblk -= 1

@@ -3,7 +3,7 @@
 
 :mod:`sqd_tpu.parallel.sharded_solve` splits the ``norb^2`` excitation-pair
 axis but replicates the amplitude grid and every Krylov buffer — the dimension
-ceiling stays one chip's HBM.  Here the ``(M, N)`` amplitude matrix itself is
+ceiling stays one device's memory.  Here the ``(M, N)`` amplitude matrix itself is
 sharded along M: each device owns ``M/ndev`` alpha rows of the amplitudes,
 the Krylov basis/image buffers (the dominant memory: ``max_subspace x M x N``),
 the per-row gather tables, and the diagonal.  The Davidson driver completes
@@ -49,11 +49,11 @@ _AXIS = "row"
 def _rowsharded_matvec(op, x):
     """H applied to the local alpha-row shard of the flat direction vector.
 
-    Gather orientation follows the on-chip measurement in
-    ``ops.hamiltonian.__matvec_blocked_beta_first_rowmajor``: XLA gathers are
-    slice-count-bound (~17 ns/slice on a v5e) — a ``take_along_axis`` over
-    the last axis issues 4-BYTE slices, so every beta pick here runs against
-    the TRANSPOSED intermediate (slices of ``m_loc * 4`` bytes instead).
+    Gather orientation follows
+    ``ops.hamiltonian.__matvec_blocked_beta_first_rowmajor``: XLA gathers
+    pay per slice — a ``take_along_axis`` over the last axis issues 4-BYTE
+    slices, so every beta pick here runs against the TRANSPOSED intermediate
+    (slices of ``m_loc * 4`` bytes instead).
     """
     m_loc, n = op["hdiag"].shape
     dt = x.dtype

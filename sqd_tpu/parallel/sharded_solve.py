@@ -7,13 +7,13 @@ answer is an external MPI program.  Here a *single* selected-CI solve scales
 over the mesh natively: the ``norb^2`` excitation-pair axis of the cross-spin
 channel is sharded, each device gathers and contracts its pair block, and the
 ERI contraction moves between pair shards as a blockwise ``psum`` ring
-(volume = one G tensor per matvec, riding ICI).  Amplitude vectors stay
+(volume = one G tensor per matvec, over the device interconnect).  Amplitude vectors stay
 replicated (they are small compared to the per-pair intermediates), so the
 Davidson driver itself runs unmodified inside ``shard_map``.
 
 Memory per device drops from ``npair * M * N`` to ``npair/n_dev * M * N``,
 which is what lifts the 1e7-determinant configs ([4Fe-4S], BASELINE config 5)
-onto a v5e-8 slice.  The fused spin penalty works sharded too: the
+onto a multi-device mesh.  The fused spin penalty works sharded too: the
 qp-permuted beta tables it needs are sharded along the same pair axis.
 """
 
@@ -72,9 +72,9 @@ def _sharded_matvec(op, x):
             g_loc = jnp.where(my == d, summed, g_loc)
 
         # local beta scatter of my G' rows, then global sum.  Picks run
-        # against the TRANSPOSED intermediate: XLA gathers are slice-count
-        # bound (~17 ns/slice measured on a v5e, see ops.hamiltonian), so the
-        # slices must be (m*4)-byte rows, never 4-byte lane elements.
+        # against the TRANSPOSED intermediate: XLA gathers pay per slice (see
+        # ops.hamiltonian), so the slices must be (m*4)-byte rows, never
+        # 4-byte elements.
         g_t = g_loc.reshape(npair_loc, m, n).transpose(0, 2, 1).reshape(
             npair_loc * n, m
         )
@@ -139,9 +139,7 @@ def _solve_inside(op32, hdiag, tol, max_subspace, max_cycle, mv=None):
     vec = res.vector.astype(jnp.float64)
     vec = vec / jnp.linalg.norm(vec)
     # The final energy is computed OUTSIDE the shard_map by the caller via
-    # the chunk-accumulated expectation_value: a plain f64 matvec + vdot here
-    # would accumulate at f32 grade on TPU (no f64 MXU; ~3.4e-4 abs at 1e6
-    # dets) and miss the <1e-8 Ha target these large solves exist for.
+    # the f64 expectation_value of the exact unsharded operator.
     return vec, res.iterations, res.converged, res.residual_norm
 
 
@@ -262,8 +260,8 @@ def solve_sci_distributed(
     )
     vec, iters, converged, rnorm = solve(op32, hdiag)
     # Bare-H energy (the spin penalty only steers the iteration; same policy
-    # as the reference's energy-from-RDMs, fermion.py:509-524), through the
-    # chunk-accumulated evaluator: host-f64-exact on CPU, ~1e-8 on TPU.
+    # as the reference's energy-from-RDMs, fermion.py:509-524), as the f64
+    # Rayleigh quotient of the exact operator.
     energy = float(expectation_value(ham64, jnp.asarray(vec)))
     amplitudes = np.asarray(vec).reshape(m, n)
 

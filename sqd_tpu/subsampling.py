@@ -1,7 +1,7 @@
 # (C) 2026. Licensed under the Apache License, Version 2.0.
 """Postselection and batch subsampling of bitstring matrices.
 
-TPU-native re-implementation of reference L1 (``qiskit_addon_sqd/subsampling.py``).
+Device re-implementation of reference L1 (``qiskit_addon_sqd/subsampling.py``).
 The public surface is identical.  :func:`subsample` mirrors the reference's
 host ``rng.choice`` semantics exactly (the orchestrator's bit-for-bit seeded
 determinism rests on it); :func:`subsample_device` draws all batches at once

@@ -125,8 +125,8 @@ def test_no_core_ecore_is_nuclear_repulsion(n2_sto3g):
 def test_error_paths():
     with pytest.raises(ValueError, match="Unknown basis"):
         Molecule([("H", (0, 0, 0))], basis="nope")
-    with pytest.raises(ValueError, match="No 'sto-3g' data"):
-        Molecule([("Fe", (0, 0, 0))], basis="sto-3g")
+    with pytest.raises(ValueError, match="No 'sto-3g' data for element 'Ne'"):
+        Molecule([("Ne", (0, 0, 0))], basis="sto-3g")
     with pytest.raises(ValueError, match="even electron count"):
         rhf(Molecule([("H", (0, 0, 0))], basis="sto-3g"))
     mf = rhf(Molecule([("H", (0, 0, 0)), ("H", (0, 0, 0.74))], basis="sto-3g"))

@@ -170,19 +170,12 @@ def test_init_distributed_branches(monkeypatch):
     # idempotent second call: no new initialize
     assert distributed.init_distributed() is True and len(calls) == 1
 
-    # cloud-TPU autodetection: >1 worker hostname, no explicit coordinator
+    # no coordinator anywhere: the single-process degenerate case
     monkeypatch.setattr(distributed, "_INITIALIZED", False)
     monkeypatch.delenv("SQD_TPU_COORDINATOR")
     monkeypatch.delenv("SQD_TPU_NUM_PROCESSES")
     monkeypatch.delenv("SQD_TPU_PROCESS_ID")
-    monkeypatch.setenv("TPU_WORKER_HOSTNAMES", "host-a,host-b")
-    assert distributed.init_distributed() is True
-    assert len(calls) == 2 and calls[-1]["coordinator_address"] is None
-
-    # single-entry TPU_WORKER_HOSTNAMES (this image) stays degenerate
-    monkeypatch.setattr(distributed, "_INITIALIZED", False)
-    monkeypatch.setenv("TPU_WORKER_HOSTNAMES", "localhost")
-    assert distributed.init_distributed() is False and len(calls) == 2
+    assert distributed.init_distributed() is False and len(calls) == 1
 
 
 def test_init_distributed_raced_preinitialization(monkeypatch):

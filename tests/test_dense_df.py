@@ -1,5 +1,5 @@
 # (C) 2026. Licensed under the Apache License, Version 2.0.
-"""Dense density-fitted matvec == gather matvec (the MXU-only large-norb path)."""
+"""Dense density-fitted matvec == gather matvec (the matmul-only large-norb path)."""
 
 import numpy as np
 import pytest
@@ -141,7 +141,7 @@ def test_densify_aliases_wb_across_mismatched_pads():
     x128-column rounding at large shapes) must still alias Wb == Wa, with the
     matvec padding/slicing c around the square factors exactly.  Regression:
     the (54e, 36o) 1e7-det bench arrived as (npair, 3168) vs (npair, 3200)
-    tables, silently built BOTH ~4.4 GB stacks and crashed a 16 GB v5e."""
+    tables and silently built BOTH ~4.4 GB stacks."""
     norb, nelec = 9, (4, 4)
     h1, eri, pa, _ = _problem(norb, nelec, 25, 25, seed=19)
     ell = pivoted_cholesky_pairs(eri, norb)

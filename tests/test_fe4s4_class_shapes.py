@@ -2,7 +2,7 @@
 """[4Fe-4S]-class problem shapes: 54 electrons in 36 spatial orbitals.
 
 BASELINE.md config 5 names this envelope ("[4Fe-4S] (54e,36o), 10^6-10^7
-determinants, batches sharded over a v5e-8 pod slice").  Iron integrals are
+determinants, batches sharded over a device mesh").  Iron integrals are
 outside this image's basis data, so the electronic structure here is
 synthetic — what these tests pin is the *machinery* at the config's shape:
 
@@ -13,9 +13,10 @@ synthetic — what these tests pin is the *machinery* at the config's shape:
 * batches solved concurrently over the 8-device mesh must agree with the
   sequential solver exactly.
 
-The on-chip 10^7-determinant timing for this shape lives in
-``probes/fe4s4_class.py`` (single real TPU; the pod-slice batch axis is the
-mesh dimension validated here and in ``__graft_entry__.dryrun_multichip``).
+The 10^7-determinant run at this shape is the ``dense_df_1e7`` phase of
+``chip_smoke.py`` and the last section of ``bench.py`` (one GPU; the batch
+axis is the mesh dimension validated here and in
+``__graft_entry__.dryrun_multichip``).
 """
 
 from __future__ import annotations
@@ -133,9 +134,9 @@ def test_fe4s4_class_single_solve_contract():
 def test_large_norb_col_block_memory_cap():
     """Auto col_block must shrink below 128 lanes when npair is huge.
 
-    At (36o, 1e7 dets) the 128-lane floor made each blocked-matvec step
-    allocate 3 x 2.1 GB (npair, 128, m) temporaries, crashing the TPU
-    worker; the cap shrinks cb so one buffer stays under ~576 MB.  The
+    At (36o, 1e7 dets) a 128-column floor would make each blocked-matvec
+    step allocate 3 x 2.1 GB (npair, 128, m) temporaries; the cap shrinks
+    cb so one buffer stays under ~576 MB.  The
     production norb=16 shapes (572 MB at 1.9e7 dets) must KEEP cb=128.
     """
     from sqd_tpu.ops.hamiltonian import _auto_col_block

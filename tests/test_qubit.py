@@ -510,7 +510,7 @@ def test_estimate_operator_bytes_matches_build():
     packed_op = build_projected_operator(packed, op.paulis, op.coeffs, weights="packed")
     # weights alone shrink 16x; perm (shared) dominates what remains
     assert packed_op.memory_bytes < 0.55 * dense.memory_bytes
-    # reference-benchmark scale headline: 88-term ring at d = 5e7 fits 16 GB
+    # reference-benchmark scale headline: 88-term ring at d = 5e7 under 6 GB
     assert estimate_operator_bytes(
         50_000_000, num_nondiag_groups=22, max_terms_per_group=2,
         weights="packed", is_complex=True,

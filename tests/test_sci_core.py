@@ -180,84 +180,32 @@ def test_padding_is_inert():
     assert np.all(sig_pad[m:, :] == 0) and np.all(sig_pad[:, n:] == 0)
 
 
-def test_gram_eigh_variants_exact():
-    """The TPU Gram eigensolvers (full Jacobi + QDWH-hybrid) vs LAPACK.
+@pytest.mark.parametrize("n", [8, 17, 24])
+def test_masked_eigh_matches_numpy(n):
+    """The Rayleigh-Ritz eigensolve of the masked Gram matrix vs LAPACK.
 
-    The CPU suite never reaches these branches through _masked_eigh, so pin
-    them directly; accuracy must be far below the Davidson tolerances."""
-    from sqd_tpu.ops.davidson import _hybrid_eigh, _jacobi_eigh, _mm64
+    Only the leading ``m`` rows/columns are active; the sentinel diagonal
+    must sort the inactive pairs last and leave exact zeros in the inactive
+    rows of the active eigenvectors."""
+    from sqd_tpu.ops.davidson import _masked_eigh
 
-    rng = np.random.default_rng(9)
-    for n in (8, 17, 24):
-        a = rng.normal(size=(n, n))
-        a = (a + a.T) / 2
-        vals_ref = np.linalg.eigvalsh(a)
-        aj = jnp.asarray(a, jnp.float64)
-        for fn in (_jacobi_eigh, _hybrid_eigh):
-            vals, vecs = fn(aj)
-            np.testing.assert_allclose(np.asarray(vals), vals_ref, atol=1e-10)
-            resid = np.asarray(_mm64(aj, vecs) - vecs * vals[None, :])
-            assert np.max(np.abs(resid)) < 1e-10
-            orth = np.asarray(_mm64(vecs.T, vecs)) - np.eye(n)
-            assert np.max(np.abs(orth)) < 1e-10
-
-
-def test_combine_rows_scan_matches_dot():
-    """The TPU-f64 scan contraction == the native dot it replaces.
-
-    On TPU an f64 dot with a small contraction dim materializes the full
-    (M, D, K) product tensor (41 GB observed at the d=1e7 qubit solve —
-    probes/qubit_solve_1e7.py); _combine_rows swaps in a lax.scan of
-    elementwise FMAs there.  Both forms must agree to f64 roundoff.
-    """
-    from sqd_tpu.ops import davidson as dav
-
-    rng = np.random.default_rng(3)
-    k_dim, m_dim, d_dim = 24, 8, 1000
-    y2 = jnp.asarray(rng.normal(size=(k_dim, m_dim)))
-    y1 = jnp.asarray(rng.normal(size=(k_dim,)))
-    rows = jnp.asarray(rng.normal(size=(k_dim, d_dim)))
-    dense2 = np.asarray(y2.T @ rows)
-    dense1 = np.asarray(y1 @ rows)
-    try:
-        dav._FORCE_COMBINE_SCAN = True
-        scan2 = np.asarray(dav._combine_rows(y2, rows))
-        scan1 = np.asarray(dav._combine_rows(y1, rows))
-    finally:
-        dav._FORCE_COMBINE_SCAN = False
-    np.testing.assert_allclose(scan2, dense2, rtol=0, atol=1e-12)
-    np.testing.assert_allclose(scan1, dense1, rtol=0, atol=1e-12)
-    assert scan2.shape == (m_dim, d_dim) and scan1.shape == (d_dim,)
-
-
-def test_davidson_with_forced_scan_combine_converges():
-    """Full Davidson through the scan-contraction path == dense-dot path.
-
-    Exercises every _combine_rows site (orthonormalize, restart, Ritz
-    recombination) with the scan lowering forced on CPU; max_subspace is
-    kept small so thick restarts actually fire.
-    """
-    from sqd_tpu.ops import davidson as dav
-    from sqd_tpu.ops.hamiltonian import sci_matvec_flat
-
-    ham, h_dense, _ = build_pair(5, 2, 3, 8, 7, seed=11)
-    evals, _ = np.linalg.eigh(h_dense)
-    m, n = ham.shape
-    ham64 = ham.astype(jnp.float64)
-    hd = ham64.hdiag.reshape(-1)
-    v0 = jnp.zeros(m * n, jnp.float64).at[jnp.argmin(hd)].set(1.0)
-    try:
-        dav._FORCE_COMBINE_SCAN = True
-        # fresh shapes vs other tests are not guaranteed, so bypass the jit
-        # wrapper (its cache key ignores the module flag) and trace directly
-        res = dav._davidson_inner(
-            sci_matvec_flat, ham64, hd, v0, tol=1e-9, max_subspace=8,
-            max_iterations=200,
-        )
-    finally:
-        dav._FORCE_COMBINE_SCAN = False
-    assert bool(res.converged)
-    np.testing.assert_allclose(float(res.theta), evals[0], atol=1e-8)
+    rng = np.random.default_rng(9 + n)
+    a = rng.normal(size=(n, n))
+    a = (a + a.T) / 2
+    m = n - 3
+    for dtype in (np.float64, np.float32):
+        vals, vecs = _masked_eigh(jnp.asarray(a, dtype), jnp.asarray(m))
+        vals, vecs = np.asarray(vals), np.asarray(vecs)
+        assert vals.dtype == dtype and vecs.dtype == dtype
+        ref_vals, ref_vecs = np.linalg.eigh(a[:m, :m])
+        tol = 1e-10 if dtype == np.float64 else 1e-5
+        np.testing.assert_allclose(vals[:m], ref_vals, atol=tol)
+        # sentinel eigenvalues dominate the whole active spectrum
+        assert np.all(vals[m:] > ref_vals.max())
+        assert np.all(vecs[m:, :] == 0)
+        # eigenvectors agree up to sign
+        overlap = np.abs(np.sum(vecs[:m, :m] * ref_vecs, axis=0))
+        np.testing.assert_allclose(overlap, 1.0, atol=tol)
 
 
 def test_davidson_vs_eigh():
@@ -349,11 +297,10 @@ def test_rdms_vs_oracle():
 
 
 def test_expectation_value_matches_matvec():
-    """Chunk-accumulated <c|H|c>/<c|c> == f64 matvec Rayleigh quotient.
+    """f64 <c|H|c>/<c|c> == the f64 matvec Rayleigh quotient, any input dtype.
 
-    Tolerance is the f32-product floor (~eps_f32 * |E|): the evaluator's
-    whole point is that on TPU it beats the 'f64' matvec path by 1e4x (the
-    MXU accumulates f32-grade); on CPU both are near-exact."""
+    An f32 operator and an f32 vector are promoted to f64 before the matvec,
+    so the quotient is exact to f64 roundoff either way."""
     from sqd_tpu.ops.hamiltonian import expectation_value, sci_matvec_flat
 
     ham, _, _ = build_pair(6, 3, 2, 17, 13, seed=31)
@@ -364,12 +311,15 @@ def test_expectation_value_matches_matvec():
         v64 = v.astype(jnp.float64)
         hv = sci_matvec_flat(ham, v64)
         e_ref = float(jnp.vdot(v64, hv) / jnp.vdot(v64, v64))
-        # default path (exact f64 on the CPU backend)
-        e = float(expectation_value(ham, v, row_block=8))
+        e = float(expectation_value(ham, v))
         assert abs(e - e_ref) < 1e-11 * max(1.0, abs(e_ref)), (dtype, e, e_ref)
-        # chunked TPU core, forced on CPU: f32-product floor
-        e_c = float(expectation_value(ham, v, row_block=8, force_chunked=True))
-        assert abs(e_c - e_ref) < 5e-7 * max(1.0, abs(e_ref)), (dtype, e_c, e_ref)
+    # an f32 operator's values are promoted: the quotient matches the f32
+    # operator's own f64 matvec exactly
+    ham32 = ham.astype(jnp.float32)
+    v = jnp.asarray(rng.normal(size=(m * n,)))
+    hv = sci_matvec_flat(ham32.astype(jnp.float64), v)
+    e_ref = float(jnp.vdot(v, hv) / jnp.vdot(v, v))
+    assert abs(float(expectation_value(ham32, v)) - e_ref) < 1e-11 * max(1.0, abs(e_ref))
 
     # spin penalty on/off
     h1, eri = random_integrals(4, 33)
@@ -381,17 +331,14 @@ def test_expectation_value_matches_matvec():
     v = jnp.asarray(rng.normal(size=(len(strs) ** 2,)))
     hv = sci_matvec_flat(ham_pen, v)
     e_pen_ref = float(jnp.vdot(v, hv) / jnp.vdot(v, v))
-    for fc in (False, True):
-        tol = 5e-7 if fc else 1e-11
-        e_pen = float(expectation_value(ham_pen, v, row_block=8, force_chunked=fc))
-        assert abs(e_pen - e_pen_ref) < tol * max(1.0, abs(e_pen_ref)), fc
-        # bare energy: subtract shift * (<S^2> - target)
-        s2 = float(ham_pen.spin_square(v.reshape(len(strs), len(strs))))
-        e_bare_ref = e_pen_ref - 0.3 * (s2 - 2.0)
-        e_bare = float(
-            expectation_value(ham_pen, v, row_block=8, spin_penalty=False, force_chunked=fc)
-        )
-        assert abs(e_bare - e_bare_ref) < tol * max(1.0, abs(e_bare_ref)), fc
+    tol = 1e-11
+    e_pen = float(expectation_value(ham_pen, v))
+    assert abs(e_pen - e_pen_ref) < tol * max(1.0, abs(e_pen_ref))
+    # bare energy: subtract shift * (<S^2> - target)
+    s2 = float(ham_pen.spin_square(v.reshape(len(strs), len(strs))))
+    e_bare_ref = e_pen_ref - 0.3 * (s2 - 2.0)
+    e_bare = float(expectation_value(ham_pen, v, spin_penalty=False))
+    assert abs(e_bare - e_bare_ref) < tol * max(1.0, abs(e_bare_ref))
 
 
 def test_rdms_blocked_matches_unblocked():
@@ -509,8 +456,7 @@ def test_hdiag_device_matches_host():
 
     The native build ships only O((M+N)*norb) operands above
     DEVICE_DIAG_MIN_ELEMS and assembles the (M, N) diagonal on device with
-    ELEMENTWISE f64 ops (exact on TPU, unlike f64 dot_generals; measured
-    5.4e-13 on chip at 1e6 dets — probes/table_build_split.py).
+    elementwise f64 ops.
     """
     import jax.numpy as jnp
 
